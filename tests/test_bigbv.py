@@ -19,8 +19,6 @@ from .graphs import erdos_renyi
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")
 
-CNR = "/root/reference/slow/it/unimi/dsi/big/webgraph/cnr-2000"
-
 
 class BigGraph:
     """Procedural graph of BVGraphSlowTest.java:30-52: nodes 0 and 1 have
@@ -130,11 +128,22 @@ def test_store_slices_roundtrip(tmp_path):
         np.testing.assert_array_equal(su, esu)
 
 
-def test_iter_csr_slices_cnr2000():
-    bv = BVGraph.load(CNR)
+def test_iter_csr_slices_cnr2000(tmp_path):
+    """Slice scan of the cnr-2000-shaped stand-in (generated, encoded with
+    cnr-2000's settings) equals the native whole-graph decode and the
+    generator."""
+    from webgraph_tpu.core.graph import CSRGraph
+    from webgraph_tpu.utils.synth import cnr2000_settings, cnr2000_standin
+
+    co, su = cnr2000_standin()
+    base = str(tmp_path / "cnr")
+    BVGraph.store(CSRGraph(co, su), base, settings=cnr2000_settings())
+    bv = BVGraph.load(base)
     data = np.asarray(bv.data)
     hco, hsu = native.bv_decode_all(data, bv.num_nodes, bv.num_arcs,
                                     bv.settings)
+    np.testing.assert_array_equal(hco, co)
+    np.testing.assert_array_equal(hsu, su)
     got = []
     x_at = 0
     for lo, hi, co, su in bv.iter_csr_slices(slice_nodes=50_021):

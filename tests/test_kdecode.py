@@ -2,15 +2,14 @@
 
 Sweeps compression settings x graph shapes against the scalar oracle,
 mirroring the reference's exhaustive small-parameter strategy
-(BVGraphTest.java:52-103).  The real-chip run of the same kernel is
-exercised by bench.py / the TPU smoke script.
+(BVGraphTest.java:52-103).  The compiled kernel is compared with the
+interpreter by the one ``gpu``-marked test, which chip_smoke.py also runs.
 """
-
-import os
 
 import numpy as np
 import pytest
 
+from webgraph_tpu import native
 from webgraph_tpu.codecs.bvgraph import BVGraph, BVGraphSettings
 from webgraph_tpu.ops import kdecode as K
 
@@ -212,3 +211,32 @@ def test_hub_chain_depth(tmp_path):
     exp = g.to_csr()
     np.testing.assert_array_equal(co, exp.offsets)
     np.testing.assert_array_equal(succ, exp.succ)
+
+
+def check_compiled_matches_interpret():
+    """The compiled Triton kernel and the Pallas interpreter give the same
+    store and diagnostics on one small graph, and the store decodes it."""
+    g = erdos_renyi(600, 0.03, seed=12)
+    s = BVGraphSettings(window_size=7, max_ref_count=3,
+                        min_interval_length=3, zeta_k=3)
+    data, _bits, offs_b, _ob, _st = native.bv_encode(g.offsets, g.succ, s)
+    offsets = native.decode_offset_stream(offs_b, g.num_nodes,
+                                          s.offset_coding)
+    prep = K.plan_kernel_decode(offsets, np.diff(g.offsets), s,
+                                np.asarray(data),
+                                halo_csr=(g.offsets, g.succ),
+                                target_arcs_per_lane=8, v_cap=64, r_cap=32)
+    args = (prep.meta, prep.col, prep.init_out)
+    o1, d1 = K.run_tiles(*args, spec=prep.spec, interpret=False)
+    o2, d2 = K.run_tiles(*args, spec=prep.spec, interpret=True)
+    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
+    np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
+    assert not K.check_diag(prep, d1).any()
+    co, succ = K.chunked_to_csr(prep, o1)
+    np.testing.assert_array_equal(co, g.offsets)
+    np.testing.assert_array_equal(succ, g.succ)
+
+
+@pytest.mark.gpu
+def test_compiled_matches_interpret(gpu):
+    check_compiled_matches_interpret()

@@ -1,9 +1,9 @@
 """Vectorized (XLA) decoder tests: bit-exact vs the scalar oracle.
 
-This is the TPU build's analogue of the reference's parallel-vs-sequential
+This is the analogue of the reference's parallel-vs-sequential
 oracle tests (SURVEY §4.4): the data-parallel decode path must agree with
 the scalar reference implementation on every graph and parameter combination.
-Runs on the CPU backend in tests; the same code runs on TPU.
+Runs on the CPU backend in tests; the same code runs on the GPU.
 """
 
 import numpy as np

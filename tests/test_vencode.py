@@ -1,4 +1,4 @@
-"""Vectorized (TPU) encoder tests.
+"""Vectorized (device) encoder tests.
 
 The vectorized path (ops/vencode: device cost matrix -> native greedy
 selection -> device token packing) must be byte-identical to the Python
@@ -25,9 +25,9 @@ pytestmark = pytest.mark.skipif(
 
 def _store_pair(g, tmp_path, **kwargs):
     a = str(tmp_path / "py")
-    b = str(tmp_path / "tpu")
+    b = str(tmp_path / "device")
     pa = BVGraph.store(g, a, backend="python", **kwargs)
-    pb = BVGraph.store(g, b, backend="tpu", **kwargs)
+    pb = BVGraph.store(g, b, backend="device", **kwargs)
     return a, b, pa, pb
 
 
@@ -98,7 +98,7 @@ def test_bitcat_random_streams():
     assert not got[len(want):].any()
 
 
-def test_cnr2000_tpu_byte_identity(tmp_path, cnr2000_basename):
+def test_cnr2000_device_byte_identity(tmp_path, cnr2000_basename):
     """Vectorized re-encode of cnr-2000 reproduces the Java-written stream
     byte for byte (graph AND offsets)."""
     bv = BVGraph.load(cnr2000_basename)
@@ -107,7 +107,7 @@ def test_cnr2000_tpu_byte_identity(tmp_path, cnr2000_basename):
     s = BVGraphSettings(window_size=7, max_ref_count=3,
                         min_interval_length=3, zeta_k=3)
     out = str(tmp_path / "cnr")
-    BVGraph.store(CSRGraph(csr_off, succ), out, settings=s, backend="tpu")
+    BVGraph.store(CSRGraph(csr_off, succ), out, settings=s, backend="device")
     want = {
         ".graph": "d56e5ef76121bd184c68ecb0262f5983",
         ".offsets": "afd663cc6560c9784f3b63a4b665de12",

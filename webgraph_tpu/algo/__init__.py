@@ -1,6 +1,6 @@
 """Large-scale graph analytics (SURVEY §2.7).
 
-TPU-native re-designs of the reference's algo/ package: edge-parallel dense
+Device re-designs of the reference's algo/ package: edge-parallel dense
 relaxations under jit instead of shared-memory thread teams.
 """
 

@@ -1,6 +1,6 @@
 """Parallel breadth-first visit.
 
-TPU-native re-design of ParallelBreadthFirstVisit (reference
+Device re-design of ParallelBreadthFirstVisit (reference
 ParallelBreadthFirstVisit.java:94-272): instead of a thread pool stealing
 GRANULARITY-sized chunks of a shared queue with CAS marker arrays, each
 level is one dense edge-parallel relaxation on device: arcs whose source is

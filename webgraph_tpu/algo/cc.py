@@ -1,7 +1,7 @@
 """Connected components of symmetric graphs.
 
 Re-design of ConnectedComponents (reference ConnectedComponents.java:107:
-repeated parallel BFS rounds marking components).  The TPU-native algorithm
+repeated parallel BFS rounds marking components).  The device algorithm
 is label propagation with pointer jumping: every node starts with its own
 id; each round takes the min label over neighbours, then compresses label
 chains (label = label[label]) — converging in O(log n) dense rounds, all on

@@ -2,7 +2,7 @@
 
 The reference uses an iterative Tarjan with an explicit stack
 (StronglyConnectedComponents.java:48-126) — inherently sequential.  The
-TPU-native algorithm is the parallel-friendly **coloring / forward-backward**
+device algorithm is the parallel-friendly **coloring / forward-backward**
 method: every node proposes the max reachable id by forward propagation
 (color), nodes whose color equals their own id are pivots; the SCC of a
 pivot is {x : color[x] == pivot and pivot reachable from x within the

@@ -15,8 +15,8 @@ reference BVGraph.java:123-233; decode semantics :995-1097; encode semantics
    length - minIntervalLength (gamma);
 4. residuals (zeta_k by default): int2nat(res0 - x), then gaps - 1.
 
-This module is the *scalar oracle* and host-side file layer.  The TPU hot
-path (vectorized decode/encode) lives in webgraph_tpu.ops.vdecode /
+This module is the *scalar oracle* and host-side file layer.  The device
+path (decode/encode) lives in webgraph_tpu.ops.kdecode /
 webgraph_tpu.ops.vencode and is bit-exact against this implementation.
 """
 
@@ -658,7 +658,8 @@ class BVGraph(ImmutableGraph):
         ``backend``: "native" uses the multithreaded C++ encoder
         (wg_bv_encode; per-thread window resets + bit-exact stream
         concatenation mirroring BVGraph.java:2373-2483), "python" the
-        single-stream reference oracle, "auto" prefers native when built.
+        single-stream reference oracle, "device" the vectorized device
+        encoder (ops.vencode), "auto" prefers native when built.
         ``num_threads``: 0 = the reference heuristic (#cores, at least
         100,000 nodes per thread, BVGraph.java:2382-2386).
         """
@@ -677,8 +678,8 @@ class BVGraph(ImmutableGraph):
             backend = "native" if _native.available() else "python"
         if backend == "native":
             return cls._store_native(graph, basename, s, comment, num_threads)
-        if backend == "tpu":
-            return cls._store_tpu(graph, basename, s, comment)
+        if backend == "device":
+            return cls._store_device(graph, basename, s, comment)
 
         enc = _Encoder(s)
         graph_w = BitWriter()
@@ -808,7 +809,7 @@ class BVGraph(ImmutableGraph):
         return props
 
     @classmethod
-    def _store_tpu(cls, graph: ImmutableGraph, basename: str,
+    def _store_device(cls, graph: ImmutableGraph, basename: str,
                    s: BVGraphSettings, comment: str) -> Dict[str, str]:
         """Vectorized device encode path (ops.vencode): chunked cost
         matrices -> one native greedy-selection pass -> device token
@@ -818,14 +819,14 @@ class BVGraph(ImmutableGraph):
         from ..ops import vencode
 
         if not vencode.supported(s):
-            raise ValueError("tpu backend does not support this coding "
+            raise ValueError("device backend does not support this coding "
                              "combination; use backend='native'")
         g = graph if isinstance(graph, CSRGraph) else graph.to_csr()
         csr_off = np.asarray(g.offsets, dtype=np.int64)
         succ = np.asarray(g.succ)
         n = len(csr_off) - 1
         if n and int(succ.max(initial=0)) >= (1 << 31):
-            raise ValueError("tpu backend requires int32 node ids; "
+            raise ValueError("device backend requires int32 node ids; "
                              "use the native StreamEncoder beyond 2^31")
         graph_b, gbits, starts, st = vencode.encode_csr_chunked(
             csr_off, succ, s)

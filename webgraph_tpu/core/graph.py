@@ -1,6 +1,6 @@
 """Array-first immutable graph abstraction.
 
-This is the TPU-native re-design of the reference's universal interface
+This is the device re-design of the reference's universal interface
 (ImmutableGraph.java:201: numNodes/numArcs/outdegree/successors/nodeIterator/
 splitNodeIterators/copy, plus reflective load/store from a .properties file,
 ImmutableGraph.java:674-738).
@@ -89,7 +89,7 @@ class ImmutableGraph:
     def split_ranges(self, pieces: int) -> List[Tuple[int, int]]:
         """Contiguous node ranges for parallel scans.
 
-        TPU-native analogue of splitNodeIterators (ImmutableGraph.java:405):
+        Device analogue of splitNodeIterators (ImmutableGraph.java:405):
         instead of handing out iterator objects, hand out [lo, hi) node
         ranges; each range is decoded/processed independently (on one chip,
         in one shard_map program instance, or on one host).

@@ -1,13 +1,14 @@
 """Native host runtime bindings (ctypes over libwgnative.so).
 
-Falls back gracefully when the shared library has not been built; callers
-test :func:`available` and use the Python oracle otherwise.  Build with
-``make -C webgraph_tpu/native``.
+The library is built from wgnative.cpp with ``make`` at first use (under a
+file lock, so concurrent test workers build it once).  Without a C++
+toolchain :func:`available` is False and callers use the Python oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -18,13 +19,31 @@ __all__ = ["available", "decode_offset_stream", "decode_outdegrees",
            "bv_decode_all", "bv_encode", "build", "StreamEncoder",
            "bv_fill_ranges", "bv_scan_hdr"]
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libwgnative.so")
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_LIB_PATH = os.path.join(_DIR, "libwgnative.so")
 _lib: Optional[ctypes.CDLL] = None
+_build_failed = False
+
+
+def build() -> bool:
+    """Run ``make`` on the library (a no-op when it is up to date), under a
+    file lock shared by every process of the checkout."""
+    with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            subprocess.run(["make", "-C", _DIR], check=True,
+                           capture_output=True)
+        except (subprocess.CalledProcessError, FileNotFoundError):
+            return False
+    return True
 
 
 def _load():
-    global _lib
-    if _lib is None and os.path.exists(_LIB_PATH):
+    global _lib, _build_failed
+    if _lib is None and not _build_failed:
+        if not build():
+            _build_failed = True
+            return None
         lib = ctypes.CDLL(_LIB_PATH)
         lib.wg_decode_offset_stream.restype = ctypes.c_int
         lib.wg_decode_outdegrees.restype = ctypes.c_int
@@ -53,16 +72,6 @@ def _load():
             lib.wg_parse_arcs.restype = ctypes.c_int64
         _lib = lib
     return _lib
-
-
-def build() -> bool:
-    """Compile the shared library in place (idempotent)."""
-    try:
-        subprocess.run(["make", "-C", os.path.dirname(__file__)],
-                       check=True, capture_output=True)
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return False
-    return _load() is not None
 
 
 def available() -> bool:

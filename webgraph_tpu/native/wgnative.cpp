@@ -1,6 +1,6 @@
 // Host-side native runtime: fast scalar BVGraph bit-stream machinery.
 //
-// The TPU compute path is JAX/XLA/Pallas (webgraph_tpu.ops); this library is
+// The device compute path is JAX/XLA/Pallas (webgraph_tpu.ops); this library is
 // the *host* substrate mirroring the role the reference's external Java
 // libraries play (dsiutils bit streams, SURVEY §2.10): offsets-index decode,
 // outdegree scans, and a full sequential BVGraph decoder used as the fast
@@ -1131,7 +1131,7 @@ int64_t wg_bv_fill_ranges(const uint8_t* data, int64_t len_bytes,
 }
 
 // Hub-entry header parse + residual checkpoints — the plan-time index pass
-// behind device-side hub decode (nodes too large for a kernel lane's VMEM
+// behind device-side hub decode (nodes too large for a kernel lane's output
 // column).  For each node x (its entry start bit supplied from the offsets
 // index): parses outdegree / reference / copy blocks / intervals, then
 // walks the residual gap codes recording a checkpoint (bit position AFTER

@@ -12,10 +12,9 @@ significant bit of byte 0.  (EFGraph uses a *different*, LSB-first longword
 discipline; see webgraph_tpu.ops.longword.)
 
 These scalar readers/writers are the *oracle* used by the test-suite and by
-host-side tooling.  The TPU hot path lives in webgraph_tpu.ops.kdecode
-(the Pallas lane-per-chunk kernel) with webgraph_tpu.ops.vdecode/vdecode2
-(vectorized XLA) as the fallback engines; all are bit-exact against this
-module.
+host-side tooling.  The device hot path lives in webgraph_tpu.ops.kdecode
+(the Pallas lane-per-chunk kernel), with webgraph_tpu.ops.vdecode as a
+vectorized XLA decoder; both are bit-exact against this module.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Elias-Fano monotone list: the offsets index as packed device arrays.
 
-The TPU-native analogue of sux4j's ``EliasFanoMonotoneLongBigList`` that the
+The device analogue of sux4j's ``EliasFanoMonotoneLongBigList`` that the
 reference wraps its offsets in (BVGraph.java:1556-1558) and caches as
 ``.obl`` (BVGraph.java:1545-1555).  Layout follows the classic construction
 (also EFGraph.java:140-168 for the successor lists): n monotone values with
@@ -159,7 +159,7 @@ class EliasFanoMonotoneList:
 
     def device_arrays(self):
         """(lower32, upper32, rank32) int32/uint32 jnp arrays for
-        :func:`device_select` (uint64 is not a native TPU type; words are
+        :func:`device_select` (uint64 is not a native device type; words are
         split into lo/hi uint32 pairs)."""
         import jax.numpy as jnp
         lo = self.lower.view(np.uint32).reshape(-1, 2)
@@ -196,7 +196,7 @@ def device_select(lower32, upper32, rank32, ell: int, idx):
 
     ``idx`` int32[...]; returns ``(hi, lo)`` int32/uint32 planes with
     value = hi * 2**ell + lo — pure 32-bit arithmetic throughout (JAX x64
-    stays off; TPU has no native 64-bit lanes anyway).  Requires ell <= 32
+    stays off).  Requires ell <= 32
     (true for any realistic offsets index: ell ~ log2(bits/node)); callers
     compose on host, or keep the planes for chunk-relative device math.
     """

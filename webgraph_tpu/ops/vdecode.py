@@ -1,6 +1,6 @@
-"""Vectorized BVGraph decoder — the TPU hot path.
+"""Vectorized BVGraph decoder in plain XLA.
 
-TPU-native re-design of BVGraph decoding (reference semantics:
+A data-parallel re-design of BVGraph decoding (reference semantics:
 BVGraph.java:995-1097 random access, :1100-1245 sequential window; SURVEY §7
 design).  Instead of lazy per-edge iterators we run two data-parallel phases
 over the whole graph (or a node chunk):
@@ -19,7 +19,7 @@ from the already-final rows of their referents through the copy-block mask
 then completed rows are re-sorted by one lexicographic (row, value) sort.
 
 Everything is jax.numpy / lax — it runs identically on a CPU mesh and on
-TPU, and shards over a device mesh by node ranges (webgraph_tpu.parallel).
+the GPU, and shards over a device mesh by node ranges (webgraph_tpu.parallel).
 Bit-exactness is asserted against the scalar oracle in tests.  Rare nodes
 whose copy-block count exceeds the padded capacity are decoded by the scalar
 oracle and patched in before resolution.
@@ -167,10 +167,8 @@ MAX_UNARY_BITS = 64 * 4
 def _read_unary(words, pos, active):
     """Leading-zero count from ``pos`` for ``active`` lanes.
 
-    Scans up to MAX_UNARY_BITS via an UNROLLED sequence of 64-bit windows —
-    never a device loop: on this TPU runtime a gather inside a
-    while_loop/cond body is ~1000x slower and permanently degrades the
-    process (see vparse2._machine)."""
+    Scans up to MAX_UNARY_BITS via an unrolled sequence of 64-bit
+    windows."""
     hi, lo = _window64(words, pos)
     u = jnp.where(hi != 0, _clz(hi), 32 + _clz(lo))
     pend = active & (hi == 0) & (lo == 0)
@@ -519,8 +517,7 @@ def _depth_round(refs, parent, depth):
 def _depths(refs):
     """Chain depth per node: 0 where ref<=0, else depth[x - ref] + 1.
 
-    Host-driven iteration (converges in maxRefCount rounds; gathers must
-    stay out of device loops on this runtime)."""
+    Host-driven iteration (converges in maxRefCount rounds)."""
     n = refs.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
     parent = jnp.where(refs > 0, idx - refs, idx)
@@ -563,10 +560,8 @@ def _kept_ranges(blocks, bc, ref_len, K: int):
 def _g(table, idx, **kw):
     """Gather wrapped in an optimization barrier.
 
-    XLA TPU loop-fuses gathers into their elementwise consumers, which
-    serializes them (observed ~60 ms per fused gather over 3.2M slots vs
-    ~50 us for a dedicated gather kernel).  The barrier forces a
-    standalone gather op."""
+    The barrier keeps the gather a standalone op instead of letting XLA
+    fuse it into its elementwise consumers."""
     return jax.lax.optimization_barrier(jnp.take(table, idx, **kw))
 
 

@@ -2,7 +2,7 @@
 
 The reference's only scaling mechanism is shared-memory threads writing
 per-thread temp bit streams that are concatenated bit-exactly
-(BVGraph.java:2373-2483).  The TPU-native equivalent promotes the same
+(BVGraph.java:2373-2483).  The device equivalent promotes the same
 pattern to hosts (SURVEY §2.11, §5 "Distributed communication backend"):
 
 - **Encode**: the node range splits into per-host shards (arc-balanced,

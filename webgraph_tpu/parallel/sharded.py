@@ -1,201 +1,29 @@
-"""Multi-chip data-parallel decode over a device mesh.
+"""Multi-device data-parallel decode over a device mesh.
 
-The TPU-native analogue of the reference's multithread node-range
+The device analogue of the reference's multithread node-range
 parallelism (BVGraph parallel compression/decompression via
-splitNodeIterators, BVGraph.java:2406-2483; SURVEY §2.11): the graph is
-split into contiguous node chunks, one per device of a
-``jax.sharding.Mesh``; every chunk decodes independently under
-``shard_map`` (the bit stream is replicated, per-chunk node queues and
-output buffers are sharded), and outputs are gathered in node order.
-
-Reference chains never cross chunk boundaries *after halo extension*: a
-chunk additionally decodes the windowSize * maxRefCount nodes preceding it
-(the maximum chain reach, BVGraph.java:455/:2258), so phase-2 resolution is
-chunk-local.  This mirrors the reference's guarantee that sequential decode
-only ever needs the sliding window (SURVEY §5 long-context note).
+splitNodeIterators, BVGraph.java:2406-2483; SURVEY §2.11): the kernel
+plan's lane tiles are split over the devices of a ``jax.sharding.Mesh``
+and each device decodes its share under ``shard_map``.  Chunks carry their
+own halo lists, so no device needs another's output.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import vdecode as V1
-from ..ops.packed import pack_words_u32
-from ..ops.vparse2 import (init_regs, parse_step_bound,
-                           parse_v2_megastep, pass05)
-
-__all__ = ["make_mesh", "decode_sharded", "decode_sharded_kernel"]
+__all__ = ["make_mesh", "decode_sharded_kernel"]
 
 
 def make_mesh(devices=None, axis: str = "chunks") -> Mesh:
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis,))
-
-
-def decode_sharded(data, offsets, cfg: V1.ParseConfig, mesh: Mesh,
-                   max_ref_count: int = 3,
-                   bvgraph=None) -> Tuple[np.ndarray, np.ndarray]:
-    """Decode a BVGraph across all devices of ``mesh`` (one chunk each).
-
-    Returns host (csr_offsets int64[n+1], successors int64[m]).
-    """
-    D = mesh.devices.size
-    axis = mesh.axis_names[0]
-    words_np = pack_words_u32(data)
-    words = jax.device_put(
-        jnp.asarray(words_np), NamedSharding(mesh, P()))  # replicated
-    offsets = np.asarray(offsets, dtype=np.int64)
-    n = len(offsets) - 1
-    halo = cfg.window_size * max(max_ref_count, 1)
-
-    # global cheap passes (outdegrees, refs, block counts)
-    starts = jnp.asarray(offsets[:-1], dtype=jnp.int32)
-    outd, pos_a, _uo = V1._pass0(words, starts, cfg)
-    refs, bc, pos_c = pass05(words, pos_a, outd, cfg)
-    outd_np = np.asarray(outd)
-    refs_np = np.asarray(refs)
-    bc_np = np.asarray(bc)
-    pos_c_np = np.asarray(pos_c)
-    csr_off_np = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(outd_np, out=csr_off_np[1:])
-
-    # chunk boundaries (node-balanced; arc-balanced is a host-side swap)
-    bounds = np.linspace(0, n, D + 1).astype(np.int64)
-    chunk_lo = bounds[:-1]
-    chunk_hi = bounds[1:]
-    dec_lo = np.maximum(chunk_lo - halo, 0)
-
-    # per-chunk local meta (padded to the max across chunks)
-    MB = cfg.max_blocks
-    ref_outd_np = np.where(refs_np > 0, outd_np[np.maximum(
-        np.arange(n, dtype=np.int64) - refs_np, 0)], 0).astype(np.int32)
-    copied0_np = np.where((refs_np > 0) & (bc_np == 0), ref_outd_np, 0)
-    extra0_np = outd_np - copied0_np
-
-    metas, n_qs, chunk_m, chunk_nn = [], [], [], []
-    for i in range(D):
-        lo, hi = int(dec_lo[i]), int(chunk_hi[i])
-        nodes = np.arange(lo, hi, dtype=np.int64)
-        local_csr = (csr_off_np[lo:hi + 1] - csr_off_np[lo]).astype(np.int32)
-        work = (outd_np[lo:hi] > 0) & ((bc_np[lo:hi] > 0)
-                                       | (extra0_np[lo:hi] > 0))
-        q = nodes[work]
-        sizes = (offsets[1:] - offsets[:-1])[q]
-        q = q[np.argsort(-sizes, kind="stable")]
-        meta = np.zeros((len(q), 8), dtype=np.int32)
-        meta[:, 0] = q - lo                       # chunk-local node id
-        meta[:, 1] = pos_c_np[q]
-        meta[:, 2] = outd_np[q]
-        meta[:, 3] = bc_np[q]
-        meta[:, 4] = q  # global value-base id
-        meta[:, 5] = ref_outd_np[q]
-        meta[:, 6] = local_csr[q - lo]
-        meta[:, 7] = copied0_np[q]
-        metas.append(meta)
-        n_qs.append(len(q))
-        chunk_m.append(int(local_csr[-1]))
-        chunk_nn.append(hi - lo)
-
-    B = cfg.batch
-    pad_q = max(B, -(-max(max(n_qs), 1) // B) * B)
-    nn_max = max(chunk_nn)
-    m_max = max(chunk_m)
-    big_len = m_max + 1 + (nn_max + 1) * MB
-    meta_stack = np.zeros((D, pad_q, 8), dtype=np.int32)
-    for i, meta in enumerate(metas):
-        meta_stack[i, :len(meta)] = meta
-    n_q_arr = np.asarray(n_qs, dtype=np.int32).reshape(D, 1)
-    blocks_off = np.full((D, 1), m_max + 1, dtype=np.int32)
-
-    sh = lambda spec: NamedSharding(mesh, spec)  # noqa: E731
-    meta_dev = jax.device_put(jnp.asarray(meta_stack), sh(P(axis, None, None)))
-    nq_dev = jax.device_put(jnp.asarray(n_q_arr), sh(P(axis, None)))
-    boff_dev = jax.device_put(jnp.asarray(blocks_off), sh(P(axis, None)))
-    big = jax.device_put(jnp.zeros((D, big_len), dtype=jnp.int32),
-                         sh(P(axis, None)))
-
-    from jax import shard_map
-
-    # per-chunk safe step bound (shard_map cannot host-sync per device)
-    bounds = []
-    for i, meta_i in enumerate(metas):
-        bounds.append(parse_step_bound(
-            meta_i[:, 3], meta_i[:, 2] - meta_i[:, 7], len(meta_i),
-            cfg.batch))
-    from ..ops.vparse2 import default_unroll
-    UNROLL = default_unroll()
-    n_mega = max(1, -(-max(bounds) // UNROLL))
-
-    use_while = jax.default_backend() == "cpu"
-
-    def one_chunk(meta_l, nq_l, boff_l, big_l):
-        # leading mesh dim of size 1 per device
-        regs = init_regs(cfg)
-        big1 = big_l[0]
-        if use_while:
-            from ..ops.vparse2 import parse_v2_while
-            regs, big1 = parse_v2_while(words, meta_l[0], big1, nq_l[0, 0],
-                                        boff_l[0, 0], regs, cfg=cfg)
-        else:
-            for _ in range(n_mega):
-                regs, big1 = parse_v2_megastep(
-                    words, meta_l[0], big1, nq_l[0, 0], boff_l[0, 0], regs,
-                    cfg=cfg, unroll=UNROLL)
-        return big1[None]
-
-    parse_sharded = jax.jit(shard_map(
-        one_chunk, mesh=mesh,
-        in_specs=(P(axis, None, None), P(axis, None), P(axis, None),
-                  P(axis, None)),
-        out_specs=P(axis, None),
-        check_vma=False,
-    ))
-    big = parse_sharded(meta_dev, nq_dev, boff_dev, big)
-
-    # phase 2 per chunk (host loop over devices; each resolve is sharded
-    # data-parallel work in its own right — kept simple here)
-    big_np = np.asarray(big)
-    out_rows = np.zeros(int(csr_off_np[-1]), dtype=np.int64)
-    for i in range(D):
-        lo, hi = int(dec_lo[i]), int(chunk_hi[i])
-        nn = hi - lo
-        local_csr = (csr_off_np[lo:hi + 1] - csr_off_np[lo])
-        mloc = int(local_csr[-1])
-        out = jnp.asarray(big_np[i, :mloc + 1])
-        blocks = jnp.asarray(
-            big_np[i, m_max + 1:m_max + 1 + (nn + 1) * MB]).reshape(nn + 1, MB)
-        refs_l = jnp.asarray(
-            np.concatenate([refs_np[lo:hi], [0]]).astype(np.int32))
-        bc_l = jnp.asarray(
-            np.concatenate([bc_np[lo:hi], [0]]).astype(np.int32))
-        outd_l = jnp.asarray(
-            np.concatenate([outd_np[lo:hi], [0]]).astype(np.int32))
-        from ..ops.vdecode2 import _copied_from_blocks
-        copied_l = _copied_from_blocks(blocks, bc_l, refs_l, outd_l)
-        depth = V1._depths(refs_l[:nn])
-        depth = jnp.concatenate([depth, jnp.zeros(1, jnp.int32)])
-        dmax = int(jnp.max(depth)) if nn else 0
-        max_bc = int(jnp.max(bc_l)) if nn else 0
-        K = max(min(MB // 2 + 1, max_bc // 2 + 2), 1)
-        ref_len = jnp.take(outd_l, jnp.maximum(
-            jnp.arange(nn + 1, dtype=jnp.int32) - refs_l, 0), mode="clip")
-        ks, kl, kc = V1._kept_ranges(blocks, bc_l, ref_len, K)
-        row = jnp.asarray(np.repeat(np.arange(nn, dtype=np.int32),
-                                    np.diff(local_csr)))
-        csr_dev = jnp.asarray(local_csr)
-        for t in range(0, dmax + 1):
-            out = V1._resolve_depth(out, jnp.int32(t), csr_dev, row, refs_l,
-                                    copied_l, ks, kl, kc, depth, K)
-        rows = np.asarray(out[:mloc], dtype=np.int64)
-        keep_lo = int(chunk_lo[i])  # drop halo rows
-        a = int(local_csr[keep_lo - lo])
-        out_rows[csr_off_np[keep_lo]:csr_off_np[hi]] = rows[a:]
-    return csr_off_np, out_rows
 
 
 def decode_sharded_kernel(prep, mesh: Mesh, interpret: Optional[bool] = None):
@@ -207,17 +35,15 @@ def decode_sharded_kernel(prep, mesh: Mesh, interpret: Optional[bool] = None):
     multi-chip analogue of the reference's splitNodeIterators node ranges,
     ImmutableGraph.java:405; per-thread output concatenation
     BVGraph.java:2432-2483 becomes the node-ordered gather of the sharded
-    output columns).  Returns (out_cols, diag) with leading tile dim T,
-    gathered to the host-addressable sharded arrays; feed them to
-    ``kdecode.check_diag`` / ``kdecode.chunked_to_csr`` exactly like the
-    single-chip path.
+    output columns).  Returns (out_cols, diag) sharded over the mesh, their
+    leading tile dim T rounded up to a multiple of the mesh size (the
+    trailing tiles are empty); feed them to ``kdecode.check_diag`` /
+    ``kdecode.chunked_to_csr`` exactly like the single-chip path.
     """
-    from jax import shard_map
-
     from ..ops import kdecode as K
 
     if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        interpret = K.kernel_mode()
     D = mesh.devices.size
     axis = mesh.axis_names[0]
     spec = prep.spec
@@ -235,19 +61,25 @@ def decode_sharded_kernel(prep, mesh: Mesh, interpret: Optional[bool] = None):
     col = jax.device_put(col, sh())
     init = jax.device_put(init, sh())
 
+    return _sharded_decoder(spec, mesh, interpret)(meta, col, init)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_decoder(spec, mesh: Mesh, interpret: bool):
+    """jit(shard_map(kernel launch over each device's tiles)), built once
+    per (spec, mesh)."""
+    from jax import shard_map
+
+    from ..ops import kdecode as K
+
+    axis = mesh.axis_names[0]
+
     def shard_fn(m, c, i):
-        def step(_, xs):
-            mm, cc, ii = xs
-            return None, K._run_tile(mm, cc, ii, spec, interpret)
+        return K.run_tiles(m, c, i, spec, interpret)
 
-        _, (o, dg) = jax.lax.scan(step, None, (m, c, i))
-        return o, dg
-
-    f = jax.jit(shard_map(
+    return jax.jit(shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis)),
         check_vma=False,
     ))
-    out, diag = f(meta, col, init)
-    return out[:T], diag[:T]

@@ -1,6 +1,6 @@
 """Graph transformation engine.
 
-TPU-native re-design of the reference's out-of-core transformation engine
+Device re-design of the reference's out-of-core transformation engine
 (Transform.java, SURVEY §2.6): where the reference streams lazy iterators
 through disk-batch external sorts (processBatch :938-974, BatchGraph
 :709-926), this engine operates on dense arc arrays — device-side

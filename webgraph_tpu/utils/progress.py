@@ -3,7 +3,7 @@
 The analogue of dsiutils' ProgressLogger, which the reference threads
 through every long operation (BVGraph.java:1517/:2207-2297, HyperBall.java
 :1056-1062): rate + ETA logging at a bounded frequency, plus a structured
-per-phase timing recorder (the TPU build's substitute for the reference's
+per-phase timing recorder (this build's substitute for the reference's
 running bits/link logs — SURVEY §5 tracing).
 
 Loggers default to the ``webgraph_tpu`` logging namespace; nothing prints
@@ -104,7 +104,7 @@ class PhaseTimer:
             ...
         t.report()   # dict of phase -> seconds (insertion-ordered)
 
-    The TPU-side analogue of the reference's per-component bit/timing stats
+    The device-side analogue of the reference's per-component bit/timing stats
     (SURVEY §5); kdecode/bench use it to expose where decode wall time
     goes."""
 
